@@ -1,8 +1,8 @@
-# Runtime image for the TPU-native genome downsampler.
+# Runtime image for the genome downsampler.
 # Parity with the reference's Dockerfile (/root/reference/Dockerfile), which
 # ships the compiled binary on ubuntu; here the native pieces (io/csrc) are
-# compiled at build time and the JAX TPU runtime comes from the standard
-# libtpu wheel when run on a TPU VM (falls back to CPU elsewhere).
+# compiled at build time. The image installs CPU-only JAX; on an NVIDIA
+# host install "jax[cuda12]" instead to run the device solvers on the GPU.
 
 FROM python:3.12-slim
 
@@ -10,11 +10,11 @@ RUN apt-get update \
     && apt-get install -y --no-install-recommends g++ zlib1g-dev \
     && rm -rf /var/lib/apt/lists/*
 
-WORKDIR /opt/genome-downsampler-tpu
+WORKDIR /opt/genome-downsampler
 COPY pyproject.toml README.md ./
 COPY genome_downsampler_tpu ./genome_downsampler_tpu
 
-# TPU hosts: pip install "jax[tpu]" instead (kept CPU-only for portability)
+# GPU hosts: pip install "jax[cuda12]" instead (kept CPU-only for portability)
 RUN pip install --no-cache-dir jax numpy scipy && pip install --no-cache-dir .
 
 # pre-build the native library so first run needs no compiler round trip

@@ -1,4 +1,4 @@
-"""TPU-native genomic read-downsampling framework.
+"""Genomic read-downsampling framework on JAX (device solvers on the GPU).
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 migoox/genome-downsampler: given BAM alignments and a maximum coverage M,

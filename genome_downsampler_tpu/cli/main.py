@@ -9,7 +9,8 @@ Same surface as the reference binary (``/root/reference/src/app.cpp:26-107``):
 
 Deviations (documented): ``-v`` actually raises the log level (the
 reference parses it but never uses it, SURVEY.md section 5.5); solver names
-gain ``*-tpu`` entries and lose ``quasi-mcp-cuda``.
+gain ``*-tpu`` entries (the device solvers, run on the GPU) and lose
+``quasi-mcp-cuda``.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ _log = get_logger("cli")
 def build_parser(registry) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="genome-downsampler",
-        description="TPU-native genomic read downsampling to a maximum "
-        "per-base coverage.",
+        description="Genomic read downsampling to a maximum per-base "
+        "coverage.",
     )
     p.add_argument("input", nargs="?", metavar="INPUT_FILEPATH",
                    help=".bam input file path. Required option.")
@@ -248,6 +249,11 @@ def run_test(args, registry) -> int:
 def main(argv: Optional[List[str]] = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
+    from genome_downsampler_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
     registry = default_registry()
     if argv[:1] == ["test"]:
         args = build_test_parser(registry).parse_args(argv[1:])

@@ -32,11 +32,17 @@ def build_bamio(force: bool = False) -> Path:
     newest_src = max(s.stat().st_mtime for s in _SRCS)
     if not force and _SO.exists() and _SO.stat().st_mtime >= newest_src:
         return _SO
+    # build beside the target and rename into place, so that processes
+    # building at once (test workers in a fresh checkout) never load a
+    # half-written library
+    tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
     cmd = [
         "g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-        *[str(s) for s in _SRCS], "-o", str(_SO), "-lz", "-lpthread",
+        *[str(s) for s in _SRCS], "-o", str(tmp), "-lz", "-lpthread",
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
         raise NativeBuildError(f"bamio build failed:\n{proc.stderr}")
+    os.replace(tmp, _SO)
     return _SO

@@ -224,43 +224,6 @@ int64_t gd_greedy_mcp(
 
 void gd_free_i64(int64_t* p) { std::free(p); }
 
-// Capped-coverage target min(coverage, M) per base — the device sweep's
-// input, computed host-side so the solver ships one small target array
-// instead of the raw start/end arrays (transfer diet for the dev relay;
-// semantics of ops/coverage.py::capped_coverage). Threaded difference
-// histogram + sequential cumsum. out: caller-allocated int32[n_pad]
-// (positions >= n get 0 coverage by construction since end < n).
-// Returns 0, -1 on error.
-int64_t gd_capped_target(
-    const int64_t* start, const int64_t* end, int64_t R,
-    int64_t n_pad, int64_t max_coverage, int32_t* out) {
-    if (n_pad >= INT32_MAX) return -1;
-    for (int64_t i = 0; i < R; ++i)
-        if (start[i] < 0 || end[i] < start[i] || end[i] >= n_pad) return -1;
-    const int64_t T = default_threads();
-    std::vector<std::vector<int32_t>> part(T);
-    std::vector<std::thread> pool;
-    for (int64_t k = 0; k < T; ++k) {
-        pool.emplace_back([&, k] {
-            auto& d = part[k];
-            d.assign(n_pad + 1, 0);
-            int64_t r0 = R * k / T, r1 = R * (k + 1) / T;
-            for (int64_t r = r0; r < r1; ++r) {
-                d[start[r]]++;
-                d[end[r] + 1]--;
-            }
-        });
-    }
-    for (auto& th : pool) th.join();
-    int64_t run = 0;
-    const int32_t cap = (int32_t)std::min<int64_t>(max_coverage, INT32_MAX);
-    for (int64_t j = 0; j < n_pad; ++j) {
-        for (int64_t k = 0; k < T; ++k) run += part[k][j];
-        out[j] = run < cap ? (int32_t)run : cap;
-    }
-    return 0;
-}
-
 // Identity reconstruction for the device sweep solvers: given the per-end
 // selected counts the kernel emits (solvers/device_sweep.reconstruct_selection
 // semantics), mark, per end bucket e, the sel_per_end[e] reads with smallest
@@ -689,24 +652,6 @@ extern "C" int64_t gd_pack_flat_u16(
     for (auto& th : pool) th.join();
     *out = flat;
     return total;
-}
-
-// Narrow arena-held packed codes to uint16 (sentinel -1 -> 0xFFFF); valid
-// when B * L <= 2^16. Arena-owned output (overwritten by the next call).
-extern "C" int64_t gd_pack_to_u16(
-    const int32_t* packed, int64_t count, uint16_t** out) {
-    uint16_t* p16 = pack_bufs().packed16.get(std::max<int64_t>(count, 1));
-    const int64_t T = default_threads();
-    std::vector<std::thread> pool;
-    for (int64_t k = 0; k < T; ++k)
-        pool.emplace_back([&, k] {
-            int64_t lo = count * k / T, hi = count * (k + 1) / T;
-            for (int64_t i = lo; i < hi; ++i)
-                p16[i] = (uint16_t)packed[i];  // -1 wraps to 0xFFFF
-        });
-    for (auto& th : pool) th.join();
-    *out = p16;
-    return 0;
 }
 
 // Selection extraction from the device bitmask: out01[r] = bit slots[r] of

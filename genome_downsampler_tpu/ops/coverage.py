@@ -3,11 +3,11 @@
 The reference computes per-base coverage with an O(reads x read_length)
 nested loop (the b-function,
 ``/root/reference/libs/qmcp-solver/src/quasi_mcp_cpu_max_flow_solver.cpp:58-73``
-and ``BamApi::find_input_cover``,
-``/root/reference/libs/bam-api/src/bam_api.cpp:275-286``). On TPU this is a
-difference-array scatter-add (+w at ``start``, -w at ``end+1``) followed by a
-``cumsum`` — O(reads + genome) and fully vectorized on the VPU; XLA lowers the
-scatter to a sorted segment update and the cumsum to a log-depth scan.
+and ``BamApi::find_input_cover``, the reference's
+``libs/bam-api/src/bam_api.cpp:275-286``). On the device this
+is a difference-array scatter-add (+w at ``start``, -w at ``end+1``) followed
+by a ``cumsum`` — O(reads + genome) and fully vectorized; XLA lowers the
+scatter to an atomic or sorted segment update and the cumsum to a scan.
 
 Padding convention: invalid (padded) reads carry ``weight == 0`` so they
 contribute nothing; their sentinel interval is ``start=0, end=-1``.

@@ -1,25 +1,26 @@
-"""Multi-chip blocked sweep: O(R/D + n/D) memory per device.
+"""Multi-device blocked sweep: O(R/D + n/D) memory per device.
 
 The chr1-scale path (BASELINE.md config 5). Combines the two scaling
 mechanisms of this framework:
 
-- ``ops/pallas_blocked``: packed per-(window, block) read codes with
-  in-kernel MXU tile build, W_local windows in the sweep carry's sublane
-  axis — O(R) total memory instead of the dense (n, L) histogram;
+- ``ops/pallas_blocked``: packed per-(window, block) read codes, one
+  kernel program per window, O(R) total memory instead of the dense
+  (n, L) histogram;
 - ``parallel/mesh``: genome-axis sharding over a 1-D device mesh with
   ``ppermute`` halo exchange of the sweep carry.
 
-Global window chain: D devices x W_local sublane windows = W_total windows
-over the coordinate line. One Jacobi relaxation round = every window sweeps
-in parallel seeded by its left neighbor's previous carry-out; the neighbor
+Global window chain: D devices x W_local windows = W_total windows over
+the coordinate line. One Jacobi relaxation round = every window sweeps in
+parallel seeded by its left neighbour's previous carry-out; the neighbour
 shift is a within-device row shift for interior windows and a ppermute for
 the device boundary. A psum-reduced stability flag ends the loop; the fixed
 point is bit-identical to the global sequential sweep (argument in
 ``parallel/windows.py``).
 
 Per-device memory: packed codes O(R/D), target/output O(n/D), carries
-O(W_local * L). Cross-device traffic per round: two (W_local-free) L-vector
-pairs per boundary — independent of genome length and read count.
+O(W_local * L). Cross-device traffic per round: one (avail, selend) pair
+of L-vectors per device boundary — independent of genome length and read
+count.
 """
 
 from __future__ import annotations
@@ -29,7 +30,6 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from genome_downsampler_tpu.ops.pallas_blocked import blocked_sweep_pass
@@ -37,31 +37,26 @@ from genome_downsampler_tpu.ops.pallas_blocked import blocked_sweep_pass
 
 def _blocked_relax_local(
     packed_local: jax.Array,   # int32[nbw, W_local, cap]
-    counts_local: jax.Array,   # int32[nbw, W_local]
     target_local: jax.Array,   # int32[W_local, win]
     *,
-    n_windows_local: int,
     block: int,
     max_span: int,
-    chunk: int,
-    interpret: bool,
-    static_chunks: bool,
+    group: int,
+    route: str,
     axis: str,
 ):
     """Per-device body (inside shard_map): joint relaxation of the global
     window chain, local windows advancing together each round."""
-    W, L = n_windows_local, max_span
+    W, L = packed_local.shape[1], max_span
     n_dev = jax.lax.axis_size(axis)
     total_rounds = n_dev * W
     right_perm = [(i, i + 1) for i in range(n_dev - 1)]
 
     def passes(a_in, s_in):
-        sel, a_out, s_out, _ = blocked_sweep_pass(
-            packed_local, counts_local, target_local, a_in, s_in,
-            n_windows_local, block, max_span, chunk, interpret,
-            static_chunks=static_chunks,
+        return blocked_sweep_pass(
+            packed_local, target_local, a_in, s_in, block=block,
+            max_span=max_span, group=group, route=route,
         )
-        return sel, a_out, s_out
 
     def shift(c_out):
         # global chain shift: window w takes w-1's carry; window 0 of this
@@ -96,44 +91,32 @@ def _blocked_relax_local(
 
 def make_blocked_mesh_solver(
     mesh: Mesh,
-    nbw: int,
-    cap: int,
-    win: int,
-    n_windows_local: int = 8,
     block: int = 256,
     max_span: int = 256,
-    chunk: int = 256,
-    interpret: bool = False,
-    static_chunks: bool | str = "auto",
+    group: int = 256,
+    route: str = "xla",
     axis: str = "x",
-) -> Tuple[callable, NamedSharding, NamedSharding, NamedSharding]:
+) -> Tuple[callable, NamedSharding, NamedSharding]:
     """Jitted multi-device blocked solver.
 
     Expects host packing from ``pack_blocked(start, end, n, W_total, block,
-    max_span)`` with ``W_total = mesh_size * n_windows_local``. Returns
-    ``(fn, packed_sharding, counts_sharding, target_sharding)``;
-    ``fn(packed, counts, target) -> sel (W_total, win)`` sharded P(axis).
-
-    ``static_chunks="auto"`` switches to the counts-free kernel variant when
-    the per-device (nbw, W_local) count table would overflow the ~1 MB SMEM
-    scalar-prefetch budget (chr1-class grids) — see ``blocked_sweep_pass``.
+    max_span)`` with ``W_total = mesh_size * W_local`` and a window length
+    that is a multiple of ``group``. Returns ``(fn, packed_sharding,
+    target_sharding)``; ``fn(packed, target) -> sel (W_total, win)``
+    sharded P(axis). ``route`` comes from ``ops.route.kernel_route``.
     """
-    if static_chunks == "auto":
-        static_chunks = nbw * n_windows_local * 4 > 512 * 1024
     fn = jax.jit(
         jax.shard_map(
             functools.partial(
                 _blocked_relax_local,
-                n_windows_local=n_windows_local,
                 block=block,
                 max_span=max_span,
-                chunk=chunk,
-                interpret=interpret,
-                static_chunks=bool(static_chunks),
+                group=group,
+                route=route,
                 axis=axis,
             ),
             mesh=mesh,
-            in_specs=(P(None, axis, None), P(None, axis), P(axis, None)),
+            in_specs=(P(None, axis, None), P(axis, None)),
             out_specs=P(axis, None),
             # pallas_call outputs carry no varying-mesh-axes metadata yet;
             # the kernel touches only per-device data, so vma checking is
@@ -144,6 +127,5 @@ def make_blocked_mesh_solver(
     return (
         fn,
         NamedSharding(mesh, P(None, axis, None)),
-        NamedSharding(mesh, P(None, axis)),
         NamedSharding(mesh, P(axis, None)),
     )

@@ -3,8 +3,12 @@
 The reference has no distributed communication backend at all (SURVEY.md
 section 5.8); this module is the new component: ``jax.distributed`` process
 bootstrap + global-mesh construction + host-local data placement for the
-window solver. On a TPU pod slice the same code runs over ICI/DCN; in tests
-it runs as N local processes with virtual CPU devices.
+window solver. Across GPU hosts the same code runs over NCCL; in tests it
+runs as N local processes with virtual CPU devices.
+
+Run ONE process per host: it drives all of that host's cards. A JAX
+process opens every visible card and reserves most of each card's memory,
+so a second process on the same host would fail for want of memory.
 
 Environment contract (matches common launchers):
     GD_COORDINATOR   host:port of process 0      (default 127.0.0.1:9911)

@@ -2,9 +2,8 @@
 
 A production service downsamples many BAMs against the same reference; the
 sweep's per-position state is a (L,) vector, so B samples stack into a
-(B, L) carry and run in one scan — the per-step instruction count barely
-changes (sublane-parallel on TPU), giving ~B-fold throughput for batch
-workloads. This is a capability the reference (single-shot CLI) does not
+(B, L) carry and run in one scan: one step advances every sample, so the
+per-step dispatch cost is shared B ways. This is a capability the reference (single-shot CLI) does not
 have.
 """
 

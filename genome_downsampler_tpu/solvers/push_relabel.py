@@ -1,6 +1,6 @@
 """Deterministic data-parallel push-relabel max-flow on the interval graph.
 
-TPU-native re-design of the reference CUDA solver
+Device re-design (plain JAX) of the reference CUDA solver
 (``/root/reference/libs/qmcp-solver/src/quasi_mcp_cuda_max_flow_solver.cu``):
 same flow network (read arcs ``start -> end+1`` cap 1, backward chain arcs
 ``i+1 -> i`` with huge capacity, virtual source/sink arcs from the demand

@@ -3,8 +3,9 @@
 Parity target: ``SolverManager``
 (``/root/reference/src/solver_manager.hpp:16-42``), which registers
 ``quasi-mcp-cpu`` (default), ``mcp-cpu``, ``qmcp-cpu`` and (under CUDA)
-``quasi-mcp-cuda``. Here the accelerator solvers are TPU-native
-(``*-tpu``) and the CPU names are kept for CLI compatibility. Factories are
+``quasi-mcp-cuda``. Here the device solvers keep the names of the first
+release (the CLI surface; they run on the GPU) and the CPU names are kept
+for CLI compatibility. Factories are
 lazy so importing the registry never pulls in JAX for host-only use.
 """
 
@@ -71,31 +72,31 @@ def _make_qmcp_lp() -> Solver:
     return QmcpSequentialSolver()
 
 
-def _make_quasi_tpu() -> Solver:
+def _make_push_relabel() -> Solver:
     from genome_downsampler_tpu.solvers.push_relabel import QuasiMcpPushRelabelSolver
 
     return QuasiMcpPushRelabelSolver()
 
 
-def _make_mcp_tpu() -> Solver:
+def _make_mcp_device() -> Solver:
     from genome_downsampler_tpu.solvers.device_sweep import McpDeviceSweepSolver
 
     return McpDeviceSweepSolver()
 
 
-def _make_qmcp_tpu() -> Solver:
+def _make_qmcp_device() -> Solver:
     from genome_downsampler_tpu.solvers.device_mcmf import QmcpDeviceMcmfSolver
 
     return QmcpDeviceMcmfSolver()
 
 
-def _make_qmcp_sweep_tpu() -> Solver:
+def _make_qmcp_sweep() -> Solver:
     from genome_downsampler_tpu.solvers.device_sweep import QmcpDeviceSweepSolver
 
     return QmcpDeviceSweepSolver()
 
 
-def _make_mcp_tpu_blocked() -> Solver:
+def _make_blocked() -> Solver:
     from genome_downsampler_tpu.solvers.blocked_sweep import BlockedWindowedMcpSolver
 
     return BlockedWindowedMcpSolver()
@@ -117,18 +118,19 @@ def default_registry() -> SolverRegistry:
     reg.register("mcp-cpu-py", _make_py_greedy, uses_quality=False)
     reg.register("qmcp-cpu", _make_qmcp_cpu, uses_quality=True)
     reg.register("qmcp-lp-cpu", _make_qmcp_lp, uses_quality=True)
-    # TPU-native solvers (the reference's CUDA slot, re-designed for XLA).
+    # Device solvers (the reference's CUDA slot, re-designed for XLA). Their
+    # names keep a historical suffix as the CLI surface; they run on the GPU.
     # quasi-mcp-tpu == mcp-tpu: the exact sweep is also the best feasible
     # selection; the push-relabel flow engine stays available by name.
-    reg.register("quasi-mcp-tpu", _make_mcp_tpu, uses_quality=False)
-    reg.register("quasi-mcp-flow-tpu", _make_quasi_tpu, uses_quality=False)
-    reg.register("mcp-tpu", _make_mcp_tpu, uses_quality=False)
+    reg.register("quasi-mcp-tpu", _make_mcp_device, uses_quality=False)
+    reg.register("quasi-mcp-flow-tpu", _make_push_relabel, uses_quality=False)
+    reg.register("mcp-tpu", _make_mcp_device, uses_quality=False)
     # qmcp-tpu is EXACT in the reference's weighted objective (scan-SSP on
     # the convex-bucket network); the faster min-count-then-quality
     # heuristic sweep stays available under an explicit name.
-    reg.register("qmcp-tpu", _make_qmcp_tpu, uses_quality=True)
-    reg.register("qmcp-sweep-tpu", _make_qmcp_sweep_tpu, uses_quality=True)
-    # large-genome device path: O(R) memory, W windows in the sublane axis
-    reg.register("mcp-tpu-blocked", _make_mcp_tpu_blocked, uses_quality=False)
+    reg.register("qmcp-tpu", _make_qmcp_device, uses_quality=True)
+    reg.register("qmcp-sweep-tpu", _make_qmcp_sweep, uses_quality=True)
+    # the blocked multi-window sweep by name (mcp-tpu runs it too)
+    reg.register("mcp-tpu-blocked", _make_blocked, uses_quality=False)
     reg.register("test", _make_test, uses_quality=False)
     return reg

@@ -1,7 +1,7 @@
 """Profiling hooks: jax.profiler traces + per-phase wall timers.
 
 The reference's tracing story is chrono timers at DEBUG plus a clang XRay
-build preset (SURVEY.md section 5.1). The TPU equivalents: ``trace``
+build preset (SURVEY.md section 5.1). The JAX equivalents: ``trace``
 captures a TensorBoard-compatible device trace around any phase;
 ``annotate`` adds named regions; the per-phase timers live in
 ``utils.timer``.

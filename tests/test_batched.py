@@ -12,7 +12,7 @@ def test_batched_matches_individual():
     batches = [rand_reads_uniform(rng, 400 + 100 * i, 4096, 60) for i in range(4)]
     m = 6
     got = solve_batch(batches, m, max_span=64, pad_multiple=1024)
-    solver = McpDeviceSweepSolver(max_span=64, pad_multiple=1024, use_pallas=False)
+    solver = McpDeviceSweepSolver(max_span=64, pad_multiple=1024)
     for b, sel in zip(batches, got):
         np.testing.assert_array_equal(sel, solver.solve(m, b))
 

@@ -19,8 +19,11 @@ from genome_downsampler_tpu.solvers.device_sweep import (
 from genome_downsampler_tpu.testing.reads_gen import rand_reads_uniform
 
 
-@pytest.mark.parametrize("n_dev,w_local,m", [(2, 4, 5), (4, 2, 3), (8, 2, 9)])
-def test_blocked_mesh_matches_global(n_dev, w_local, m):
+@pytest.mark.parametrize(
+    "n_dev,w_local,m,route",
+    [(2, 4, 5, "interpret"), (4, 2, 3, "interpret"), (8, 2, 9, "xla")],
+)
+def test_blocked_mesh_matches_global(n_dev, w_local, m, route):
     B, L = 32, 32
     n = 2048
     W_total = n_dev * w_local
@@ -29,7 +32,7 @@ def test_blocked_mesh_matches_global(n_dev, w_local, m):
     start = np.asarray(batch.start, np.int64)
     end = np.asarray(batch.end, np.int64)
 
-    packed, counts, win, n_pad = pack_blocked(
+    packed, _, win, n_pad = pack_blocked(
         start, end, n, W_total, B, L, cap_multiple=32
     )
     ones = jnp.ones(start.shape[0], jnp.int32)
@@ -42,15 +45,12 @@ def test_blocked_mesh_matches_global(n_dev, w_local, m):
     target = capped_coverage(cov, m).reshape(W_total, win)
 
     mesh = Mesh(np.array(jax.devices()[:n_dev]), ("x",))
-    fn, packed_sh, counts_sh, target_sh = make_blocked_mesh_solver(
-        mesh, packed.shape[0], packed.shape[2], win,
-        n_windows_local=w_local, block=B, max_span=L, chunk=32,
-        interpret=True,
+    fn, packed_sh, target_sh = make_blocked_mesh_solver(
+        mesh, block=B, max_span=L, group=B, route=route,
     )
     packed_d = jax.device_put(jnp.asarray(packed), packed_sh)
-    counts_d = jax.device_put(jnp.asarray(counts), counts_sh)
     target_d = jax.device_put(target, target_sh)
-    sel = np.asarray(fn(packed_d, counts_d, target_d)).reshape(-1)
+    sel = np.asarray(fn(packed_d, target_d)).reshape(-1)
 
     # global reference
     arrays, valid = batch.padded(512)

@@ -1,4 +1,5 @@
-"""Blocked multi-window Pallas sweep vs the global scan (interpret on CPU)."""
+"""Blocked multi-window sweep vs the global scan (CPU: kernel in interpret
+mode, and the XLA reference)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -31,11 +32,11 @@ def global_reference(batch, n_pad, m, L):
     return np.asarray(sel)
 
 
-def run_blocked(batch, n, W, B, L, m, chunk=64):
+def run_blocked(batch, n, W, B, L, m, route="interpret"):
     start = np.asarray(batch.start, np.int64)
     end = np.asarray(batch.end, np.int64)
     packed, counts, win, n_pad = pack_blocked(
-        start, end, n, W, B, L, cap_multiple=chunk
+        start, end, n, W, B, L, cap_multiple=16
     )
     s_dev = jnp.asarray(start.astype(np.int32))
     e_dev = jnp.asarray(end.astype(np.int32))
@@ -43,8 +44,8 @@ def run_blocked(batch, n, W, B, L, m, chunk=64):
     cov = coverage_from_intervals(s_dev, e_dev, n_pad, ones)
     target = capped_coverage(cov, m).reshape(W, win)
     sel, rounds = blocked_windowed_sweep(
-        jnp.asarray(packed), jnp.asarray(counts), target,
-        W, B, L, chunk, True,
+        jnp.asarray(packed), target,
+        block=B, max_span=L, group=B, route=route,
     )
     return np.asarray(sel), n_pad, int(rounds)
 
@@ -77,13 +78,15 @@ def test_pack_blocked_roundtrip():
             )
 
 
-@pytest.mark.parametrize("seed,m", [(0, 3), (1, 7), (2, 12)])
-def test_blocked_matches_global_sweep(seed, m):
+@pytest.mark.parametrize(
+    "seed,m,route", [(0, 3, "interpret"), (1, 7, "xla"), (2, 12, "interpret")]
+)
+def test_blocked_matches_global_sweep(seed, m, route):
     W, B, L = 4, 64, 64
     n = 900  # not a multiple of W*B: exercises padding
     rng = np.random.default_rng(seed)
     batch = rand_reads_uniform(rng, 800, n, 48)
-    sel, n_pad, rounds = run_blocked(batch, n, W, B, L, m)
+    sel, n_pad, rounds = run_blocked(batch, n, W, B, L, m, route)
     ref = global_reference(batch, n_pad, m, L)
     np.testing.assert_array_equal(sel, ref)
     assert 1 <= rounds <= W
@@ -108,7 +111,7 @@ def test_blocked_sparse_blocks_and_empty_windows():
         is_first=np.tile([True, False], r // 2),
         ref_genome_length=n,
     )
-    sel, n_pad, _ = run_blocked(batch, n, W, B, L, m=4, chunk=32)
+    sel, n_pad, _ = run_blocked(batch, n, W, B, L, m=4)
     ref = global_reference(batch, n_pad, 4, L)
     np.testing.assert_array_equal(sel, ref)
 
@@ -122,37 +125,47 @@ def test_blocked_solver_matches_host_oracle():
     rng = np.random.default_rng(7)
     batch = rand_reads_uniform(rng, 1200, 2000, 50)
     sel = BlockedWindowedMcpSolver(
-        n_windows=4, block=64, max_span=64, chunk=64
+        n_windows=4, block=64, max_span=64, interpret=True
     ).solve(5, batch)
     oracle = GreedyMcpSolver().solve(5, batch)
     np.testing.assert_array_equal(sel, oracle)
 
 
+def host_reconstruct(batch, m, L=64):
+    """Per-end counts of the global sweep, mapped to reads by the host
+    counting sort — the reference for the on-device reconstruction."""
+    from genome_downsampler_tpu.solvers.device_sweep import (
+        reconstruct_selection,
+    )
+
+    n = batch.ref_genome_length
+    sel = global_reference(batch, n, m, L)
+    return reconstruct_selection(
+        np.asarray(batch.start, np.int64), np.asarray(batch.end, np.int64),
+        sel,
+    )
+
+
 @pytest.mark.parametrize("seed,m", [(0, 4), (5, 9)])
 def test_device_reconstruct_mask_equals_host_reconstruct(seed, m):
     """The on-device bitmask reconstruction selects the exact same reads as
-    the host counting-sort path (same (end, start, index) bucket rule)."""
+    the host counting sort (same (end, start, index) bucket rule)."""
     from genome_downsampler_tpu.solvers.blocked_sweep import (
         BlockedWindowedMcpSolver,
     )
 
     rng = np.random.default_rng(seed)
     batch = rand_reads_uniform(rng, 1500, 2500, 60)
-    kw = dict(n_windows=4, block=64, max_span=64, chunk=64)
     sel_dev = BlockedWindowedMcpSolver(
-        device_reconstruct=True, **kw
+        n_windows=4, block=64, max_span=64
     ).solve(m, batch)
-    sel_host = BlockedWindowedMcpSolver(
-        device_reconstruct=False, **kw
-    ).solve(m, batch)
-    np.testing.assert_array_equal(sel_dev, sel_host)
+    np.testing.assert_array_equal(sel_dev, host_reconstruct(batch, m))
 
 
 def test_device_reconstruct_stress_duplicates_and_spill():
     """Adversarial mask-reconstruction data: heavy duplicate (start, end)
-    cells (exercises intra-cell index ranks incl. cross-chunk runs), groups
-    overflowing one chunk (cap > chunk), and reads ending across window
-    boundaries (exercises the xwin offsets)."""
+    cells (exercises intra-cell index ranks incl. runs longer than a
+    block's share), and reads ending across window boundaries."""
     from genome_downsampler_tpu.core.readbatch import ReadBatch
     from genome_downsampler_tpu.solvers.blocked_sweep import (
         BlockedWindowedMcpSolver,
@@ -165,8 +178,6 @@ def test_device_reconstruct_stress_duplicates_and_spill():
     for ci in range(60):
         s = int(rng.integers(0, n - L))
         sp = int(rng.integers(4, L - 1))
-        # one clump larger than a chunk: forces cap > chunk, so equal-code
-        # runs span chunk boundaries (the cross-chunk rank path)
         k = 100 if ci == 0 else int(rng.integers(2, 24))
         parts.append(np.tile([[s, s + sp - 1]], (k, 1)))
     # plus uniform background, with mass near window boundaries
@@ -185,15 +196,11 @@ def test_device_reconstruct_stress_duplicates_and_spill():
         is_first=np.tile([True, False], r // 2 + 1)[:r],
         ref_genome_length=n,
     )
-    kw = dict(n_windows=4, block=64, max_span=64, chunk=64)
     for m in (3, 11):
         sel_dev = BlockedWindowedMcpSolver(
-            device_reconstruct=True, **kw
+            n_windows=4, block=64, max_span=64, interpret=m == 3
         ).solve(m, batch)
-        sel_host = BlockedWindowedMcpSolver(
-            device_reconstruct=False, **kw
-        ).solve(m, batch)
-        np.testing.assert_array_equal(sel_dev, sel_host)
+        np.testing.assert_array_equal(sel_dev, host_reconstruct(batch, m))
 
 
 def test_pack_blocked_slots_roundtrip():
@@ -214,39 +221,26 @@ def test_pack_blocked_slots_roundtrip():
         assert len(np.unique(slots)) == 400
 
 
-def test_transfer_diet_helpers():
-    """Host capped-target helper equals the device coverage op; the narrow
-    dtype picker is safe at its boundaries."""
-    import jax.numpy as jnp
-
-    from genome_downsampler_tpu.ops.coverage import (
-        capped_coverage,
-        coverage_from_intervals,
-    )
+def test_geometry_caps_windows_at_deep_coverage():
+    """Deep input coverage caps the window count at DEEP_MAX_WINDOWS;
+    shallower data may use up to MAX_WINDOWS; every window keeps at least
+    MIN_WINDOW positions."""
     from genome_downsampler_tpu.solvers.blocked_sweep import (
-        _capped_target_host,
-        _narrow_dtype,
+        DEEP_COVERAGE,
+        DEEP_MAX_WINDOWS,
+        MAX_WINDOWS,
+        MIN_WINDOW,
+        BlockedWindowedMcpSolver,
     )
 
-    rng = np.random.default_rng(3)
-    n_pad = 4096
-    start = rng.integers(0, 3000, 5000)
-    end = start + rng.integers(0, 200, 5000)
-    host = _capped_target_host(start, end, n_pad, 7)
-    dev = capped_coverage(
-        coverage_from_intervals(
-            jnp.asarray(start.astype(np.int32)),
-            jnp.asarray(end.astype(np.int32)),
-            n_pad,
-        ),
-        7,
-    )
-    np.testing.assert_array_equal(host, np.asarray(dev))
-
-    assert _narrow_dtype(127) == np.int8
-    assert _narrow_dtype(128) == np.int16
-    assert _narrow_dtype(32767) == np.int16
-    assert _narrow_dtype(32768) == np.int32
+    s = BlockedWindowedMcpSolver()
+    n = 62_500_000
+    assert s._geometry(n, 150, 60.0)[0] == MAX_WINDOWS
+    assert s._geometry(n, 150, DEEP_COVERAGE)[0] == DEEP_MAX_WINDOWS
+    assert s._geometry(30_000, 150, 10_000.0)[0] == 1
+    W = s._geometry(2_000_000, 150, 60.0)[0]
+    assert W < MAX_WINDOWS
+    assert 2_000_000 // W >= MIN_WINDOW > 2_000_000 // (2 * W)
 
 
 def test_uint16_code_path_bit_equal_to_int32():
@@ -277,12 +271,12 @@ def test_uint16_code_path_bit_equal_to_int32():
     )
     # block*max_span = 64*64 = 4096 <= 2^16: the uint16 path engages
     sel = BlockedWindowedMcpSolver(
-        n_windows=4, block=64, max_span=64, chunk=64
+        n_windows=4, block=64, max_span=64
     ).solve(3, batch)
     # identity tie-breaks differ legitimately from the Python greedy under
     # variable spans; the uint16/int8 transfer encodings must preserve the
     # exact per-end counts of the global sweep and the optimal count
-    _, n_pad, _ = run_blocked(batch, n, 4, 64, 64, m=3, chunk=64)
+    _, n_pad, _ = run_blocked(batch, n, 4, 64, 64, m=3, route="xla")
     ref_counts = global_reference(batch, n_pad, 3, 64)
     ce = np.bincount(
         np.asarray(batch.end)[np.asarray(sel)], minlength=n_pad
@@ -292,45 +286,36 @@ def test_uint16_code_path_bit_equal_to_int32():
     assert len(sel) == len(oracle)
 
 
-def test_mask_kernel_cross_validates_argsort_engine():
-    """The MXU reconstruction kernel and the (non-production) argsort
-    engine are independent implementations of the same bucket rule; they
-    must agree bit-for-bit."""
+def test_selection_mask_matches_host_reconstruct():
+    """The on-device bucket rule (``_selection_mask``: two stable argsorts
+    over packed slots) picks the same reads as the host counting sort
+    (``reconstruct_selection``) for the same per-end counts."""
     import jax.numpy as jnp
 
-    from genome_downsampler_tpu.ops.pallas_blocked import (
-        blocked_selection_pass,
-        blocked_windowed_sweep,
-    )
-    from genome_downsampler_tpu.solvers.blocked_sweep import (
-        _cross_window_offsets,
-        _selection_mask,
+    from genome_downsampler_tpu.ops.pallas_blocked import mask_select
+    from genome_downsampler_tpu.solvers.blocked_sweep import _selection_mask
+    from genome_downsampler_tpu.solvers.device_sweep import (
+        reconstruct_selection,
     )
 
     rng = np.random.default_rng(21)
     batch = rand_reads_uniform(rng, 1800, 2500, 60)
     start = np.asarray(batch.start, np.int64)
     end = np.asarray(batch.end, np.int64)
-    W, B, L, chunk = 4, 64, 64, 64
-    packed, counts, win, n_pad = pack_blocked(
-        start, end, 2500, W, B, L, chunk
+    W, B, L = 4, 64, 64
+    packed, _, win, n_pad, slots = pack_blocked(
+        start, end, 2500, W, B, L, 64, return_slots=True
     )
     p32 = jnp.asarray(np.ascontiguousarray(packed))
-    cts = jnp.asarray(np.ascontiguousarray(counts))
     sel, _ = blocked_windowed_sweep(
-        p32, cts, None, W, B, L, chunk, True,
-        auto_target=True, max_coverage=6,
+        p32, None, block=B, max_span=L, group=B, route="xla",
+        max_coverage=6,
     )
-    xw = jnp.asarray(_cross_window_offsets(start, end, win, W, B, L))
-    selbytes = np.asarray(
-        blocked_selection_pass(p32, cts, sel, xw, W, B, L, chunk, True)
-    ).reshape(-1)
-    bits_ref, n_ref = _selection_mask(p32, sel, W, B, L, win)
-    ref_bytes = np.unpackbits(
-        np.asarray(bits_ref), bitorder="little"
-    )[: selbytes.shape[0]]
-    np.testing.assert_array_equal(selbytes, ref_bytes)
-    assert int(selbytes.sum()) == int(n_ref)
+    bits, n_sel = _selection_mask(p32, sel, W, B, L, win)
+    dev = mask_select(np.asarray(bits), slots)
+    host = reconstruct_selection(start, end, np.asarray(sel)[:2500])
+    np.testing.assert_array_equal(dev, host)
+    assert len(dev) == int(n_sel)
 
 
 def test_fast_bam_writer_roundtrip():
@@ -364,9 +349,9 @@ def test_fast_bam_writer_roundtrip():
 
 
 def test_geometry_span_upgrade_keeps_halo_tiling():
-    """ADVICE r4 (high): a span >= max_span upgrades L (e.g. 256 -> 384),
-    and the reconstruction pass asserts L % B == 0 — geometry must drop to
-    B=128 whenever the upgraded L is not a 256-multiple."""
+    """A span >= max_span upgrades L to the next power of two (the kernel's
+    lane ring needs one); the block keeps B * L within the uint16 code
+    stream, and the group is a whole number of both."""
     from genome_downsampler_tpu.solvers.blocked_sweep import (
         BlockedWindowedMcpSolver,
     )
@@ -374,16 +359,16 @@ def test_geometry_span_upgrade_keeps_halo_tiling():
     s = BlockedWindowedMcpSolver()
     for n in (8_192, 100_000, 4_000_000, 60_000_000):
         for span_max in (100, 255, 256, 300, 512, 513, 640):
-            W, B, L, chunk = s._geometry(n, span_max)
-            assert L % B == 0, (n, span_max, W, B, L)
-            if span_max >= 256:
-                assert span_max <= L - 2, (n, span_max, L)
+            W, B, L, G = s._geometry(n, span_max)
+            assert L & (L - 1) == 0 and span_max <= L - 1, (n, span_max, L)
+            assert B * L <= 1 << 16, (n, span_max, B, L)
+            assert G % L == 0 and G % B == 0, (n, span_max, B, L, G)
+            assert W * G * L * 4 <= 256 * 1024 * 1024 or G == max(B, L)
 
 
 def test_blocked_solver_span_at_default_max_span():
     """End-to-end device_reconstruct solve with one read of span exactly
-    DEFAULT_MAX_SPAN — the r4 crash case (L upgraded to 384 while geometry
-    picked B=256, tripping the halo-tiling assert)."""
+    DEFAULT_MAX_SPAN: L upgrades to 512 and the block shrinks to 128."""
     from genome_downsampler_tpu.core.readbatch import ReadBatch
     from genome_downsampler_tpu.solvers.blocked_sweep import (
         BlockedWindowedMcpSolver,
@@ -406,7 +391,7 @@ def test_blocked_solver_span_at_default_max_span():
     )
     solver = BlockedWindowedMcpSolver(interpret=True)
     W, B, L, _ = solver._geometry(n, 256)
-    assert L == 384 and B == 128
+    assert L == 512 and B == 128
     sel = solver.solve(4, batch)
     oracle = GreedyMcpSolver().solve(4, batch)
     np.testing.assert_array_equal(sel, oracle)

@@ -102,26 +102,28 @@ def test_qmcp_sweep_feasible():
     assert_valid(batch, sel, 3)
 
 
-def test_engine_auto_dispatch_threshold():
-    from genome_downsampler_tpu.solvers.device_sweep import (
-        DENSE_ROWS_BUDGET_BYTES,
-        McpDeviceSweepSolver,
-    )
-
-    s = McpDeviceSweepSolver()
-    assert s._pick_engine(30_000) == "dense"
-    too_big = DENSE_ROWS_BUDGET_BYTES // (s.max_span * 4) + 1
-    assert s._pick_engine(too_big) == "blocked"
-
-
-def test_engine_blocked_matches_dense():
-    import numpy as np
-
-    from genome_downsampler_tpu.solvers.device_sweep import McpDeviceSweepSolver
-    from genome_downsampler_tpu.testing.reads_gen import rand_reads_uniform
-
+def test_solver_runs_blocked_route_and_records_stats():
+    """Every genome size runs the blocked sweep; on the CPU the route is
+    the XLA reference, and the geometry lands in ``last_stats``."""
     rng = np.random.default_rng(7)
     batch = rand_reads_uniform(rng, 3000, 8192, 150)
-    dense = McpDeviceSweepSolver(engine="dense").solve(25, batch)
-    blocked = McpDeviceSweepSolver(engine="blocked").solve(25, batch)
-    np.testing.assert_array_equal(dense, blocked)
+    s = McpDeviceSweepSolver()
+    sel = s.solve(25, batch)
+    assert_valid(batch, sel, 25)
+    st = s.last_stats
+    assert st["route"] == "xla" and st["rounds"] >= 1
+    assert st["positions_per_pass"] % st["group"] == 0
+
+
+def test_interpret_route_matches_xla_route():
+    """The kernel (interpret mode) and the XLA reference pick the same
+    reads."""
+    rng = np.random.default_rng(8)
+    batch = rand_reads_uniform(rng, 1500, 4096, 100)
+    from genome_downsampler_tpu.solvers.blocked_sweep import (
+        BlockedWindowedMcpSolver,
+    )
+
+    xla = McpDeviceSweepSolver(max_span=128).solve(9, batch)
+    kern = BlockedWindowedMcpSolver(max_span=128, interpret=True).solve(9, batch)
+    np.testing.assert_array_equal(xla, kern)

@@ -40,7 +40,7 @@ def test_native_exact_and_bit_equal_to_sweep(seed, m):
     rng = np.random.default_rng(seed)
     batch = rand_reads_uniform(rng, 3000, 6144, 60)
     native = NativeGreedyMcpSolver().solve(m, batch)
-    sweep = McpDeviceSweepSolver(max_span=64, use_pallas=False).solve(m, batch)
+    sweep = McpDeviceSweepSolver(max_span=64).solve(m, batch)
     np.testing.assert_array_equal(native, sweep)
     python = GreedyMcpSolver().solve(m, batch)
     assert len(native) == len(python)
@@ -51,6 +51,9 @@ def test_native_large_scale_fast():
     batch = rand_reads_uniform(rng, 1_000_000, 30_000, 150)
     import time
 
+    from genome_downsampler_tpu.io.build import build_bamio
+
+    build_bamio()  # a fresh checkout compiles the library on first use
     t0 = time.perf_counter()
     native = NativeGreedyMcpSolver().solve(1000, batch)
     dt = time.perf_counter() - t0

@@ -26,7 +26,7 @@ def test_qmcp_sweep_valid_count_optimal_quality_better(seed, m):
     rng = np.random.default_rng(seed)
     batch = rand_reads_uniform(rng, 1500, 4096, 60)
     qmcp = QmcpDeviceSweepSolver(max_span=64, pad_multiple=1024)
-    mcp = McpDeviceSweepSolver(max_span=64, pad_multiple=1024, use_pallas=False)
+    mcp = McpDeviceSweepSolver(max_span=64, pad_multiple=1024)
     sel_q = qmcp.solve(m, batch)
     sel_m = mcp.solve(m, batch)
     n = batch.ref_genome_length
@@ -51,7 +51,7 @@ def test_qmcp_sweep_cost_ordering():
     m = 4
     sel_sweep = QmcpDeviceSweepSolver(max_span=64, pad_multiple=1024).solve(m, batch)
     sel_plain = McpDeviceSweepSolver(
-        max_span=64, pad_multiple=1024, use_pallas=False
+        max_span=64, pad_multiple=1024
     ).solve(m, batch)
     sel_exact = NativeQmcpSolver().solve(m, batch)
     q = np.asarray(batch.quality, np.int64)
